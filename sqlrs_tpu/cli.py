@@ -112,7 +112,7 @@ class Cli:
                 readline.read_history_file(HISTORY_FILE)
         except Exception:
             readline = None
-        print("sqlrs_tpu — TPU-native SQL engine. \\? for help, \\q to quit.")
+        print("sqlrs_tpu — SQL engine on JAX. \\? for help, \\q to quit.")
         while True:
             try:
                 line = input(PROMPT).strip()

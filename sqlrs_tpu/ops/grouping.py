@@ -11,11 +11,8 @@ insertion-ordered map (reference hash_agg.rs:85-111) and the slt suite
 depends on.
 
 ops/hash_table.py holds a plain-XLA open-addressing hash table kept as a
-measured comparison baseline (scatter-bound, ~943K rows/s on v5e); the
-sort-run formulations here and in ops/grouped_agg.py are the production
-paths. Mosaic on this hardware generation cannot lower arbitrary
-per-element gathers in Pallas (see CLAUDE.md), so there is no Pallas
-hash-table path.
+comparison baseline (its insert loop is scatter-bound); the sort-run
+formulations here and in ops/grouped_agg.py are the production paths.
 """
 
 from __future__ import annotations
@@ -67,7 +64,12 @@ def group_ids(key_cols: list[Column]) -> tuple[jnp.ndarray, int]:
     first_row = jax.ops.segment_min(
         jnp.arange(n, dtype=jnp.int64), gid, num_segments=n_groups
     )
-    rank = jnp.argsort(jnp.argsort(first_row))
+    # inverse permutation by scatter: argsort(argsort(.)) trips XLA's GPU
+    # permutation-sort simplifier on int64 indices
+    order = jnp.argsort(first_row)
+    rank = jnp.zeros_like(order).at[order].set(
+        jnp.arange(n_groups, dtype=order.dtype)
+    )
     gid = rank[gid]
     return gid, n_groups
 

@@ -1,16 +1,13 @@
 """Open-addressing hash table kernels: grouped aggregation and equi-join.
 
-MEASURED COMPARISON BASELINE, not the production path: on TPU v5e the
-scatter-claim insert loop runs at ~943K rows/s vs 150M+ for the sort-run
-formulations in ops/pipelines.py / ops/grouped_agg.py (per-element scatters
-measure 12-40M elem/s on this generation — CLAUDE.md). Kept because (a) it
-documents why the engine is sort-based, (b) bench.py uses it as the
-scatter-path reference point, and (c) next_pow2/build_join_table remain
-used by other modules. A plain-XLA design for the two headline operators
-(reference's
-row-at-a-time HashAggExecutor, src/executor/aggregate/hash_agg.rs:32-150, and
-HashJoinExecutor, src/executor/join/hash_join.rs:146-323), redesigned for the
-TPU execution model:
+COMPARISON BASELINE, not the production path: the sort-run formulations
+in ops/pipelines.py / ops/grouped_agg.py are; whether a hash path wins on
+the H100 is not measured yet (ROADMAP 3.2). next_pow2/build_join_table
+remain used by other modules. A plain-XLA design for the two headline
+operators (reference's row-at-a-time HashAggExecutor,
+src/executor/aggregate/hash_agg.rs:32-150, and HashJoinExecutor,
+src/executor/join/hash_join.rs:146-323), redesigned for whole-batch device
+execution:
 
 - one fused jit program per operator — all probing/aggregation is device-side
   XLA (gathers/scatters/segment ops), no per-row host work;

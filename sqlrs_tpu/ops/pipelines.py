@@ -48,11 +48,10 @@ def join_groupby_local(fact_keys, fact_vals, dim_keys, n_groups: int, capacity: 
 def join_groupby_sorted(
     fact_keys, fact_vals, dim_keys_sorted, dim_perm, n_groups: int, run_capacity: int
 ):
-    """Sort-merge join + group-by: the TPU-native formulation.
+    """Sort-merge join + group-by: the run-boundary formulation.
 
-    Measured on TPU v5e, per-element scatters/gathers run at ~12-40M elem/s
-    while XLA sort streams at ~130M rows/s and prefix scans at GB/s — so the
-    hardware-right algorithm is the opposite of the reference's hash loops:
+    The opposite of the reference's hash loops — every N-sized step streams
+    and all random access is group-sized:
 
       1. sort (key, value)                       — the only O(N log N) step
       2. run boundaries + prefix sums            — pure streaming scans
@@ -157,8 +156,7 @@ def _ranks_and_value_prefix(sp2d, queries, vmask, bp):
         prefix_values(q) = bp[c-1] + sum(row & vmask where row < q)
 
     over the SAME row the rank reduction reads — the separate prefix_at
-    stage (two more (2G,128) HBM gathers) disappears. Measured on v5e this
-    removed ~2/3 of the non-sort overhead of join_groupby_direct.
+    stage (two more (2G,128) gathers) disappears.
 
     bp: per-block exclusive value-prefix table (nb+1). Returns
     (rank_left, value_prefix) with value_prefix in bp's dtype."""
@@ -198,8 +196,8 @@ def _ranks_and_value_prefix(sp2d, queries, vmask, bp):
 def _sorted_ranks_left(sp2d, queries):
     """searchsorted(sp.ravel(), queries, side='left') for a block-reshaped
     sorted array — via ONE small merge sort of (block minima ++ queries) and
-    one gathered block row per query, instead of log2(N) latency-bound HBM
-    gathers per query (25 levels × Q on v5e).
+    one gathered block row per query, instead of log2(N) latency-bound
+    gathers per query.
 
     For each query q let c = #block-minima strictly < q (from the merged
     order). Every block >= c holds only elements >= q, every block < c-1
@@ -259,8 +257,7 @@ def join_groupby_direct(
     at those 2G positions:
 
         packed = key << vb | value        (int32 when ranges allow — the sort
-                                           is HBM-bound; 32-bit halves traffic:
-                                           measured 314M vs 232M elem/s on v5e)
+                                           moves half the bytes)
         sp  = sort(packed)                — the ONLY O(N log N) step
         cs  = cumsum(sp & vmask)          — one streaming pass
         lo/hi = searchsorted(sp, dim<<vb / (dim+1)<<vb)
@@ -276,16 +273,13 @@ def join_groupby_direct(
     dimensions — catalog check: max-min+1 == n_groups). Then
     dhi[i] == dlo[i+1] exactly, so the 2G lo/hi queries collapse to G+1
     shared boundaries: half the merge-rank sort entries and HALF the
-    latency-bound (·,128) rank-row gathers — the dominant non-sort cost
-    (26 ms of the 54 ms non-sort time at the 33.5M×64K headline scale).
-    This is EXACT with misses present: fact keys below dim-min or at/above
-    dim-max+1 fall outside [dlo_0, dhi_last) and the boundary differences
-    never count them; in-span misses cannot exist when the dim domain is
-    dense.
+    latency-bound (·,128) rank-row gathers. This is EXACT with misses
+    present: fact keys below dim-min or at/above dim-max+1 fall outside
+    [dlo_0, dhi_last) and the boundary differences never count them;
+    in-span misses cannot exist when the dim domain is dense.
 
-    extra_vals: additional value columns carried as sort PAYLOADS
-    (variadic sort cost is nearly flat in operand count — measured 8 ops
-    216 ms vs 1 op 145 ms at 33.5M on v5e), summed per group via one
+    extra_vals: additional value columns carried as sort PAYLOADS (cheaper
+    than gathering them by the sort permutation), summed per group via one
     (Q,128) payload-row gather at the SAME rank positions the packed value
     uses. Payloads are not packed, so negatives and wide ranges are fine;
     integer payloads accumulate int64, FLOAT/DOUBLE payloads accumulate
@@ -350,11 +344,10 @@ def join_groupby_direct(
     bs = jnp.sum((sp2d & vmask).astype(jnp.int64), axis=1)
     bp = jnp.cumsum(bs) - bs
 
-    # rank queries: searchsorted costs log2(N) latency-bound HBM gathers per
-    # query (measured 133 ms for 2G=131K queries over 33.5M on v5e); instead
-    # MERGE the sorted block minima with the sorted queries via one tiny
-    # (nb+2G) sort, then rank AND value-prefix inside a single gathered
-    # block per query
+    # rank queries: searchsorted costs log2(N) latency-bound gathers per
+    # query; instead MERGE the sorted block minima with the sorted queries
+    # via one tiny (nb+2G) sort, then rank AND value-prefix inside a single
+    # gathered block per query
     g = dlo.shape[0]
     if dense or shared:
         # G+1 shared boundary queries replace the 2G lo/hi pairs — half
@@ -585,8 +578,6 @@ def join_groupby_firstapp(
 
         packed = key << rid_bits | rowid        (rowid < 2^rid_bits)
         sort (packed, value)                    -- value rides as a payload
-                                                   (variadic sort is nearly
-                                                   flat in operand count)
 
     Per-key ranges come from the same merge-ranked boundary queries in the
     packed domain; per-key value sums from block prefix sums over the
@@ -601,7 +592,7 @@ def join_groupby_firstapp(
     payloads accumulate float64 (XLA-reduction-ordered, like every other
     float aggregation in the engine). fact_vals may be a single array or a
     TUPLE of value columns — every payload rides the one variadic sort
-    (nearly flat in operand count) and is summed from one (Q,128)
+    and is summed from one (Q,128)
     payload-row gather at the shared rank positions.
     Returns (sums_0, counts, first_rowid, sums_1, ...) scattered to
     dim_perm order."""
@@ -684,8 +675,8 @@ def make_join_groupby(n_groups: int, strategy: str = "direct", slack: int = 2):
             # pack32/val_bits contract: max(key) < 2^(31-val_bits) and
             # 0 <= value < 2^val_bits. When the caller passes host-known
             # table metadata (catalog min/max), the packing is AUTO-chosen:
-            # 32-bit sorts are HBM-bound at 314M elem/s vs 232M for 64-bit
-            # on v5e, so dense-key tables get the fast path by default.
+            # a 32-bit sort moves half the bytes of a 64-bit one, so
+            # dense-key tables get the narrow path by default.
             # dim_min/dim_max (catalog metadata for the UNIQUE dim keys)
             # additionally auto-select the dense boundary-sharing variant
             # when the dim domain is consecutive (surrogate keys):
@@ -702,23 +693,6 @@ def make_join_groupby(n_groups: int, strategy: str = "direct", slack: int = 2):
                 and dim_max is not None
                 and int(dim_max) - int(dim_min) + 1 == n_groups
             )
-            from sqlrs_tpu.ops.mxu_agg import (
-                mxu_eligible,
-                mxu_groupby_dense,
-                mxu_interpret_flag,
-            )
-
-            if mxu_eligible(n_groups, val_max, 0, dense):
-                # dense dim + small non-negative int values: the MXU
-                # one-hot matmul segment-sum beats the sort formulation
-                # (measured v5e: 75 ms vs 146 ms at 33.5M x 64K groups,
-                # 41 ms vs 132 ms at 4K — BASELINE.md round 4)
-                return mxu_groupby_dense(
-                    fact_keys, fact_vals, n_groups, val_bits,
-                    interpret=mxu_interpret_flag(),
-                    key_min=jnp.int64(int(dim_min)), dim_keys=dim_keys,
-                    with_perm=True,
-                )
             order = jnp.argsort(dim_keys)
             dim_sorted = dim_keys[order]
             # fk_complete (caller-asserted referential integrity: every

@@ -2,7 +2,7 @@
 
 The reference has NO distributed execution (SURVEY.md §2.3: single-process
 tokio streams, no exchange operator). This module is the from-scratch
-TPU-native counterpart: a second executor personality that runs the SAME
+counterpart: a second executor personality that runs the SAME
 physical plans the single-device executor runs, but over tables row-sharded
 across a `jax.sharding.Mesh` — the "partitioned parallel scan" (DP) component
 of the parallelism table, composed with the exchange/partial-agg/join
@@ -17,8 +17,9 @@ Design (SURVEY.md §7 "fixed-capacity batches + valid-count scalars"):
   boundary.
 - Row order: because sharding is block-contiguous and dead rows are masked
   (never reordered), collecting a ShardedBatch yields rows in EXACTLY the
-  single-device order. Distributed results are bit-exact with the
-  single-device engine, ordering included.
+  single-device order. Distributed results equal the single-device
+  engine's, ordering included, except that DOUBLE sums (per-shard partials,
+  then a combine) may differ in the last bits.
 - Operators keep data sharded as long as the op is expressible with static
   shapes and mesh collectives (scan/filter/project/simple & grouped agg/
   hash join/ORDER BY/LIMIT/DISTINCT); the rest (DISTINCT aggregates, cross
@@ -40,7 +41,7 @@ from sqlrs_tpu.data import Column, DeviceBatch, Schema
 from sqlrs_tpu.exec.executor import Executor, _schema
 from sqlrs_tpu.exec.expression_executor import execute_expr, execute_exprs_fused
 from sqlrs_tpu.ops import elementwise as ew
-from sqlrs_tpu.parallel.mesh import DATA_AXIS, replicated, row_sharding
+from sqlrs_tpu.parallel.mesh import DATA_AXIS, replicated, row_sharding, spmd
 
 
 def _host(x) -> np.ndarray:
@@ -469,9 +470,15 @@ class DistributedExecutor:
 
         glo, ghi = side(groups)
         alo, ahi = side([a.arg for a in aggregates if a.arg is not None])
-        if glo is None or ghi >= nb:  # group keys must be build-side
+        if glo is None:
             return None
-        if alo is not None and alo < nb:  # agg args must be probe-side
+        # the dim side holds every group key, the fact side every aggregate
+        # argument: dim = build (left) as written, or mirrored — dim = probe
+        # (right), e.g. `from fact f join dim d ... group by d.k`
+        mirrored = glo >= nb
+        if mirrored and (has_distinct or (alo is not None and ahi >= nb)):
+            return None
+        if not mirrored and (ghi >= nb or (alo is not None and alo < nb)):
             return None
         if has_distinct:
             lkey = jop.on[0][0]
@@ -495,8 +502,11 @@ class DistributedExecutor:
             ):
                 return None  # no exact raw reconstruction for sums
 
-        left = self.execute(jop.children[0])
-        right = self.execute(jop.children[1])
+        # from here on `left` is the dim side and `right` the fact side
+        dim_ix = 1 if mirrored else 0
+        left = self.execute(jop.children[dim_ix])
+        right = self.execute(jop.children[1 - dim_ix])
+        on = [(r, l) for l, r in jop.on] if mirrored else list(jop.on)
         ok = (
             isinstance(left, ShardedBatch)
             and isinstance(right, ShardedBatch)
@@ -534,7 +544,7 @@ class DistributedExecutor:
             # fetch for the meta)
             from sqlrs_tpu.exec.fused_route import _combine_keys
 
-            (l1, r1), (l2, r2) = jop.on
+            (l1, r1), (l2, r2) = on
             d1, d2 = execute_exprs_fused([l1, l2], lview)
             f1, f2 = execute_exprs_fused([r1, r2], rview)
             fact_ck, fact_ok, dim_ck, dim_ok2, ck_meta = _combine_keys(
@@ -554,15 +564,14 @@ class DistributedExecutor:
             # join `on` sides are resolved against their own child
             # (resolver _resolve_against per child); only agg args / group
             # keys index the merged join output and need the probe shift
-            (d_col,) = execute_exprs_fused([jop.on[0][0]], lview)
-            (f_col,) = execute_exprs_fused([jop.on[0][1]], rview)
+            (d_col,) = execute_exprs_fused([on[0][0]], lview)
+            (f_col,) = execute_exprs_fused([on[0][1]], rview)
             d_enc, d_kv = orderable_key(d_col)
             f_enc, f_kv = orderable_key(f_col)
             f_enc = f_enc.astype(d_enc.dtype)
 
         def shift(e):
-            from sqlrs_tpu.binder.expression import rewrite_expr
-
+            """merged-output reference -> the right child's own index"""
             return rewrite_expr(
                 e,
                 lambda x: BoundReference(x.index - nb, x.type, x.column_name)
@@ -570,9 +579,12 @@ class DistributedExecutor:
                 else None,
             )
 
-        group_cols = execute_exprs_fused(groups, lview)
+        group_cols = execute_exprs_fused(
+            [shift(g) for g in groups] if mirrored else groups, lview
+        )
         agg_args = [
-            execute_exprs_fused([shift(a.arg)], rview)[0]
+            execute_exprs_fused([a.arg if mirrored else shift(a.arg)],
+                                rview)[0]
             if a.arg is not None
             else None
             for a in aggregates
@@ -739,14 +751,17 @@ class DistributedExecutor:
                 final_spec.append(("one", _add(
                     kind, Column(rt, raw, sums[vix] > 0), rt, nm,
                 )))
-        # pair order: (first matching fact row, dim position); guard the
-        # packing against int64 overflow at absurd capacities
+        # group order = first appearance in the join's emission order, which
+        # is probe-row-major: with the fact side probing, (first matching
+        # fact row, dim position); with the dim side probing (mirrored), the
+        # dim position alone. Guard the packing against int64 overflow at
+        # absurd capacities.
         if right.capacity * left.capacity >= (1 << 62):
             return None  # pragma: no cover - capacities beyond packing range
         pos = jax.device_put(jnp.arange(left.capacity, dtype=jnp.int64), sh)
         pair_rowid = jnp.where(
             counts > 0,
-            min_rowid * left.capacity + pos,
+            pos if mirrored else min_rowid * left.capacity + pos,
             jnp.iinfo(jnp.int64).max,
         )
         schema2 = Schema.of(
@@ -870,7 +885,6 @@ class DistributedExecutor:
         as a partial state and the final rows are ordered by it, reproducing
         the reference's first-appearance group order exactly
         (reference hash_agg.rs:85-111)."""
-        from jax import shard_map
         from jax.sharding import PartitionSpec as PS
 
         from sqlrs_tpu.ops.grouped_agg import (
@@ -957,7 +971,7 @@ class DistributedExecutor:
         g_cap = min(next_pow2(max(64, cap_local // 8)), next_pow2(cap_local))
         while True:
             local = make_local(g_cap)
-            outs = shard_map(
+            outs = spmd(
                 local,
                 mesh=self.mesh,
                 in_specs=(PS(axis),) * len(arrays),
@@ -1480,6 +1494,10 @@ def _int64_bits(c: Column):
 class _DelegatingExecutor(Executor):
     """Standard executor that serves precomputed results for given child
     plan nodes (the materialize-and-delegate fallback seam)."""
+
+    # the children were computed sharded; a fused route would run the
+    # subtree again on one device and discard them
+    fused_routes = False
 
     def __init__(self, db, cache: dict[int, DeviceBatch]) -> None:
         super().__init__(db)

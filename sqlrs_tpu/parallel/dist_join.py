@@ -47,12 +47,12 @@ from dataclasses import dataclass
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
 from sqlrs_tpu.ops.hash_table import _mix64
 from sqlrs_tpu.ops.join import _pairs_phase_a
 from sqlrs_tpu.parallel.dist_ops import _bucketize_rows, _exchange_rows
+from sqlrs_tpu.parallel.mesh import spmd
 
 
 def _ring_probe_ranks(p_send, dest_p, n_dev, cap, axis, l_ops, nk):
@@ -325,7 +325,7 @@ def shuffle_join_phase_a(
     out_specs = (P(axis),) * (nk + nb_pay + 2 + nk + np_pay + 1 + 1 + 3) + (
         P(), P(), P(),
     )
-    outs = shard_map(
+    outs = spmd(
         local,
         mesh=mesh,
         in_specs=(P(axis),) * len(args),
@@ -391,7 +391,7 @@ def shuffle_join_phase_b(
         rowid_out = (prow[:, None] * m + j[None, :]).reshape(-1)
         return tuple(out) + (rowid_out, have.reshape(-1))
 
-    outs = shard_map(
+    outs = spmd(
         local,
         mesh=mesh,
         in_specs=(P(axis),) * (4 + n_bp + n_pp),
@@ -607,7 +607,7 @@ def ring_agg_join(
             + tuple(a for pair in mm_g for a in pair)
         )
 
-    outs = shard_map(
+    outs = spmd(
         local,
         mesh=mesh,
         in_specs=(P(axis),) * len(args),
@@ -749,7 +749,7 @@ def broadcast_agg_join(
             + tuple(a for pair in mm_g for a in pair)
         )
 
-    outs = shard_map(
+    outs = spmd(
         local,
         mesh=mesh,
         in_specs=(P(axis),) * len(args),
@@ -783,7 +783,7 @@ def pair_local_dedup(mesh, keys, vals, ok, axis="x"):
         keep = first & (sk != _MAXK)
         return sk, sv, keep
 
-    return shard_map(
+    return spmd(
         local,
         mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis)),

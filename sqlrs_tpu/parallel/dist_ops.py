@@ -27,10 +27,10 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
 from sqlrs_tpu.ops.hash_table import hash_keys
+from sqlrs_tpu.parallel.mesh import spmd
 
 
 def _overflow_scalar(x) -> int:
@@ -54,12 +54,12 @@ def _axis_size(mesh, axis):
 #
 # All four distributed join+group-by strategies share one shard-local
 # compute: fact rows joined to (a chunk of) the dim table, partial sums and
-# counts by dim row. The hash-table/scatter formulation runs at TPU scatter
-# speed (12-40M elem/s measured); this sorted formulation is the same
-# design as the single-chip headline kernel (ops/pipelines.join_groupby_direct):
-# sort the local fact rows once, then answer each dim key's [k, k+1) range
-# with merge-ranked prefix-sum differences — every N-sized op streams, and
-# the only scatter is G-sized. int64 max is a reserved key (masked rows).
+# counts by dim row. Instead of a hash-table/scatter formulation, this
+# sorted formulation is the same design as the single-device headline
+# kernel (ops/pipelines.join_groupby_direct): sort the local fact rows
+# once, then answer each dim key's [k, k+1) range with merge-ranked
+# prefix-sum differences — every N-sized op streams, and the only scatter
+# is G-sized. int64 max is a reserved key (masked rows).
 
 _BLK = 128
 _MAXK = jnp.int64(jnp.iinfo(jnp.int64).max)
@@ -162,7 +162,7 @@ def partition_shuffle(mesh, keys, values, valid, bucket_capacity: int, axis="x")
             overflow[None],
         )
 
-    return shard_map(
+    return spmd(
         local,
         mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis)),
@@ -190,7 +190,7 @@ def dist_join_groupby_broadcast(
         sums, cnts = _local_join_groupby(fk, fv, fm, dk, drow, dm, n_groups)
         return jax.lax.psum(sums, axis), jax.lax.psum(cnts, axis)
 
-    return shard_map(
+    return spmd(
         local,
         mesh=mesh,
         in_specs=(P(axis), P(axis), P()),
@@ -232,7 +232,7 @@ def dist_join_groupby_shuffle(
         sums, cnts = _local_join_groupby(fk, fv, fm, dk, drow, dm, n_groups)
         return jax.lax.psum(sums, axis), jax.lax.psum(cnts, axis)
 
-    sums, cnts = shard_map(
+    sums, cnts = spmd(
         local,
         mesh=mesh,
         in_specs=(P(axis),) * 6,
@@ -363,7 +363,7 @@ def dist_join_groupby_salted(
         overflow = jax.lax.psum(ovf_f + ovf_d + ovf_hot, axis)
         return jax.lax.psum(sums, axis), jax.lax.psum(cnts, axis), overflow
 
-    return shard_map(
+    return spmd(
         local,
         mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis), P(axis)),
@@ -479,7 +479,7 @@ def dist_join_groupby_ring(mesh, fact_keys, fact_vals, dim_keys, n_groups: int, 
         (_, _, _, sums, cnts), _ = jax.lax.scan(step, init, None, length=n_dev)
         return jax.lax.psum(sums[:n_groups], axis), jax.lax.psum(cnts[:n_groups], axis)
 
-    return shard_map(
+    return spmd(
         local,
         mesh=mesh,
         in_specs=(P(axis),) * 6,
@@ -608,7 +608,7 @@ def dist_sort_rows(
         return tuple(s_keys) + tuple(s_pays) + (s_mask, jax.lax.psum(overflow, axis)[None])
 
     extra = () if rowid is None else (rowid,)
-    outs = shard_map(
+    outs = spmd(
         local,
         mesh=mesh,
         in_specs=(P(axis),) * (1 + len(dkeys) + len(extra) + len(payload_arrays)),
@@ -665,7 +665,7 @@ def dist_sort(mesh, keys, bucket_capacity: int, axis="x"):
         sort_k = jnp.sort(jnp.where(recv_m, recv_k, big))
         return sort_k[None], jnp.sort(~recv_m)[None]  # valid rows first
 
-    ks, invalid = shard_map(
+    ks, invalid = spmd(
         local, mesh=mesh, in_specs=(P(axis),), out_specs=(P(axis), P(axis))
     )(keys)
     return ks, ~invalid

@@ -2,9 +2,9 @@
 
 The engine's collective backend is jax.lax collectives over a named mesh
 (SURVEY.md §2.3: the reference has NO distributed execution — no NCCL/MPI,
-single-process tokio streams only; this layer is the from-scratch TPU-native
+single-process tokio streams only; this layer is the from-scratch
 replacement: all-to-all for repartition, psum/all-gather for combines,
-ICI within a slice).
+which XLA hands to NCCL on GPUs).
 """
 
 from __future__ import annotations
@@ -25,13 +25,13 @@ def initialize_distributed(
 ) -> None:
     """Join the JAX distributed runtime (multi-HOST execution): after this,
     jax.devices() is the GLOBAL device list and every mesh built from it
-    spans hosts — collectives ride ICI within a slice and DCN across
-    (SURVEY.md §2.3 collective-backend row). Parameters fall back to the
-    SQLRS_TPU_COORDINATOR / SQLRS_TPU_NUM_PROCESSES / SQLRS_TPU_PROCESS_ID
-    environment variables, and to JAX's own autodetection when absent.
+    spans hosts (SURVEY.md §2.3 collective-backend row). Parameters fall
+    back to the SQLRS_TPU_COORDINATOR / SQLRS_TPU_NUM_PROCESSES /
+    SQLRS_TPU_PROCESS_ID environment variables, and to JAX's own
+    autodetection when absent.
 
     On the CPU backend the gloo collectives transport is enabled so
-    multi-process meshes work in tests/CI without TPU hardware
+    multi-process meshes work in tests/CI without accelerators
     (tests/test_multihost.py runs the full kernel set over 2 processes)."""
     import os
 
@@ -59,12 +59,18 @@ def initialize_distributed(
 
 
 def make_mesh(n_devices: Optional[int] = None, axis_name: str = DATA_AXIS) -> Mesh:
-    """Flat 1-axis mesh over the (global, multi-host if initialized) device
-    list — every dist op shards and communicates over this one axis; XLA
-    routes the collective over ICI hops within a host/slice and DCN across,
-    so the kernels need no host/device distinction."""
+    """Flat 1-axis mesh over the first `n_devices` of the (global, multi-host
+    if initialized) device list — every dist op shards and communicates over
+    this one axis. The cards of one host are joined all to all, so the mesh
+    follows the algorithm, not a topology. Raises ValueError when fewer
+    devices exist than were asked for."""
     devs = jax.devices()
     if n_devices is not None:
+        if n_devices > len(devs):
+            raise ValueError(
+                f"asked for a {n_devices}-device mesh, but JAX sees "
+                f"{len(devs)} device(s)"
+            )
         devs = devs[:n_devices]
     return Mesh(np.array(devs), (axis_name,))
 
@@ -80,6 +86,13 @@ def make_multihost_mesh(axis_names: tuple = ("host", "device")) -> Mesh:
     if len(devs) % n_proc != 0:
         return Mesh(devs.reshape(1, -1), axis_names)
     return Mesh(devs.reshape(n_proc, -1), axis_names)
+
+
+def spmd(fn, **shard_map_kwargs):
+    """`shard_map(fn, ...)` compiled as ONE program. Called eagerly,
+    shard_map runs its body primitive by primitive, compiling each op for
+    the mesh again on every call — thousands of compiles per query."""
+    return jax.jit(jax.shard_map(fn, **shard_map_kwargs))
 
 
 def row_sharding(mesh: Mesh, axis_name: str = DATA_AXIS) -> NamedSharding:

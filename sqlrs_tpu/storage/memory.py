@@ -23,7 +23,7 @@ from sqlrs_tpu.data.strings import NULL_CODE
 from sqlrs_tpu.errors import StorageError
 from sqlrs_tpu.types import LogicalType, ScalarValue, numpy_dtype_for
 
-TILE = 1024  # row-tile granularity, aligned with Pallas block shapes
+TILE = 1024  # row-tile granularity of the host column buffers
 
 
 class DataTable:

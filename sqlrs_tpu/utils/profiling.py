@@ -1,12 +1,11 @@
 """Query profiling: per-operator rows/bytes counters and roofline accounting.
 
-The reference has no metrics at all (SURVEY.md §5: stdout prints only); the
-TPU build needs per-operator rows/bytes counters and roofline accounting for
-the ≥70%-of-roofline target. This module provides:
+The reference has no metrics at all (SURVEY.md §5: stdout prints only).
+This module provides:
 
 - QueryProfile: per-operator row counts, wall time, estimated bytes touched;
-- roofline(): fraction of the chip's HBM-bandwidth bound a measured operator
-  achieved;
+- hbm_bandwidth() / OpStats.roofline_fraction(): the device's peak memory
+  bandwidth and the share of it a measured operator achieved;
 - trace(): optional jax.profiler integration for deep dives.
 
 Enabled per-session via Database(profile=True) or the SQLRS_TPU_PROFILE env
@@ -21,27 +20,33 @@ import os
 import time
 from dataclasses import dataclass, field
 
-# chip peak HBM bandwidth (bytes/s)
-HBM_BANDWIDTH = {
-    "TPU v5 lite": 819e9,
-    "TPU v5e": 819e9,
-    "TPU v5p": 2765e9,
-    "TPU v4": 1228e9,
-    "TPU v6 lite": 1640e9,
+# Peak device-memory bandwidth (bytes/s) by jax `device_kind`. Source:
+# NVIDIA H100 Tensor Core GPU data sheet (SXM5: 3.35 TB/s HBM3; PCIe:
+# 2.0 TB/s HBM2e). A GPU missing from the table is an error, not a default:
+# a made-up peak would make every roofline share wrong.
+HBM_BYTES_PER_S = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
+    "NVIDIA H100 PCIe": 2.0e12,
 }
 
 
-def chip_bandwidth() -> float:
-    try:
+def hbm_bandwidth(device=None) -> float | None:
+    """Peak memory bandwidth of `device` (default: the first JAX device);
+    None on the CPU, which has no roofline here. Raises KeyError for an
+    accelerator the table does not list."""
+    if device is None:
         import jax
 
-        kind = jax.devices()[0].device_kind
-        for k, v in HBM_BANDWIDTH.items():
-            if k.lower() in kind.lower():
-                return v
-    except Exception:
-        pass
-    return 50e9  # cpu-ish default
+        device = jax.devices()[0]
+    if device.platform == "cpu":
+        return None
+    try:
+        return HBM_BYTES_PER_S[device.device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no peak bandwidth known for device kind {device.device_kind!r}; "
+            "add it to HBM_BYTES_PER_S with its source"
+        ) from None
 
 
 @dataclass
@@ -58,10 +63,11 @@ class OpStats:
         n = self.rows_in or self.rows_out
         return n / self.self_s if self.self_s > 0 else 0.0
 
-    def roofline_fraction(self, bytes_per_row: int = 16) -> float:
-        """Fraction of the BW-bound rows/s this operator achieved."""
-        bound = chip_bandwidth() / bytes_per_row
-        return self.rows_per_sec() / bound if bound else 0.0
+    def roofline_fraction(self, bytes_per_row: int = 16) -> float | None:
+        """Fraction of the bandwidth-bound rows/s this operator achieved
+        (None where the device has no peak, i.e. on the CPU)."""
+        bw = hbm_bandwidth()
+        return None if bw is None else self.rows_per_sec() * bytes_per_row / bw
 
 
 @dataclass

@@ -4,7 +4,7 @@ argv: pid port [nprocs=2] [devices_per_proc=4] [mode=kernels]
 
 Each process owns `devices_per_proc` virtual CPU devices; after
 `initialize_distributed` the flat data mesh spans all of them across the
-processes — the CPU stand-in for a multi-host TPU pod slice (SURVEY.md
+processes — the CPU stand-in for a multi-host accelerator cluster (SURVEY.md
 §2.3 collective backend). Modes:
 
   kernels: every distributed kernel (shuffle / salted / ring

@@ -12,7 +12,7 @@ pytestmark = pytest.mark.slow
 import sqlrs_tpu
 from sqlrs_tpu import Database
 
-CSV_DIR = "/root/reference/tests/csv"
+CSV_DIR = os.path.join(os.path.dirname(__file__), "csv")
 
 
 def _make_pair():

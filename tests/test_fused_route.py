@@ -897,32 +897,23 @@ def test_semi_join_pushdown_routes_q18_shape():
     assert keys_in | keys_not == {r.split()[0] for r in base}
 
 
-def test_route_mxu_kernel_matches_general_path(monkeypatch):
-    """SQLRS_TPU_MXU=interpret lets the CPU tier exercise the MXU one-hot
-    matmul segment-sum selection (ops/mxu_agg.py): a pure sum+count rollup
-    over a dense dim domain routes through _routed_kernel_mxu and must be
-    bit-identical to the general path."""
-    monkeypatch.setenv("SQLRS_TPU_MXU", "interpret")
+def test_route_dense_dim_matches_general_path():
+    """A pure sum+count rollup over a dense dim domain takes the dense
+    packed-sort kernel and must be bit-identical to the general path, with
+    misses, with NULL fact keys, and with min() added."""
     db = _mk_db(5000, np.arange(64) + 100, seed=51)  # dense span + misses
     routed, plain, fired = _both_ways(db, sql=SQL)
-    assert any(r.endswith("_mxu") for r in fired), fired
+    assert any(r.endswith("_dense") for r in fired), fired
     assert routed == plain
-    # NULL fact keys mask below the domain
     db2 = _mk_db(3000, np.arange(32) + 7, seed=52, null_every=9)
     routed2, plain2, fired2 = _both_ways(db2, SQL)
-    assert any(r.endswith("_mxu") for r in fired2), fired2
+    assert any(r.endswith("_dense") for r in fired2), fired2
     assert routed2 == plain2
-    # min/max present: MXU ineligible, packed-sort kernel still fires
     sql3 = ("select d.k, sum(f.v), min(f.v) from f join d on f.k = d.k "
             "group by d.k order by d.k")
     routed3, plain3, fired3 = _both_ways(db, sql3)
-    assert fired3 and not any(r.endswith("_mxu") for r in fired3), fired3
+    assert any(r.endswith("_dense") for r in fired3), fired3
     assert routed3 == plain3
-    # disabled: sort kernel takes over, identical output
-    monkeypatch.setenv("SQLRS_TPU_MXU", "0")
-    routed4, plain4, fired4 = _both_ways(db, SQL)
-    assert fired4 and not any(r.endswith("_mxu") for r in fired4), fired4
-    assert routed4 == routed
 
 
 def test_route_decimal_sums_exact_at_scale():

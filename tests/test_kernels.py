@@ -227,34 +227,27 @@ def test_sort_based_filter_compaction():
     assert np.array_equal(np.asarray(got.columns[1].data), w[keep])
 
 
-def test_mxu_groupby_dense_matches_numpy():
-    """MXU one-hot matmul segment-sum (ops/mxu_agg.py): exact int64 sums
-    and counts for dense group domains, misses masked, 1-limb and 3-limb
-    value decompositions — Pallas kernel (interpret on CPU) and the XLA
-    scan variant both against numpy."""
-    from sqlrs_tpu.ops.mxu_agg import (
-        mxu_groupby_dense,
-        mxu_groupby_dense_xla,
-    )
-
+@pytest.mark.parametrize("bits,hi", [(7, 100), (23, 1 << 23)])
+def test_direct_pipeline_dense_metadata_matches_numpy(bits, hi):
+    """make_join_groupby with catalog-style metadata (key/value ranges and
+    a dense dim span, as bench.py passes it): exact int64 sums and counts
+    with misses on both sides of the span, for 7-bit and 23-bit values."""
     rng = np.random.default_rng(7)
     n, g = 70_000, 700  # non-multiple of every block size
     keys = rng.integers(0, g, n).astype(np.int64)
     keys[::11] = -3
     keys[::17] = g + 9
     m = (keys >= 0) & (keys < g)
-    for bits, hi in ((7, 100), (23, 1 << 23)):
-        vals = rng.integers(0, hi, n).astype(np.int64)
-        exp_s = np.zeros(g, np.int64)
-        exp_c = np.zeros(g, np.int64)
-        np.add.at(exp_s, keys[m], vals[m])
-        np.add.at(exp_c, keys[m], 1)
-        s, c = mxu_groupby_dense(keys, vals, g, bits, interpret=True)
-        assert np.array_equal(np.asarray(s), exp_s), bits
-        assert np.array_equal(np.asarray(c), exp_c), bits
-        s2, c2 = mxu_groupby_dense_xla(keys, vals, g, bits)
-        assert np.array_equal(np.asarray(s2), exp_s), bits
-        assert np.array_equal(np.asarray(c2), exp_c), bits
+    vals = rng.integers(0, hi, n).astype(np.int64)
+    exp_s = np.bincount(keys[m], weights=vals[m], minlength=g).astype(np.int64)
+    exp_c = np.bincount(keys[m], minlength=g)
+    s, c = make_join_groupby(g, strategy="direct")(
+        jnp.asarray(keys), jnp.asarray(vals),
+        jnp.asarray(np.arange(g, dtype=np.int64)),
+        key_max=g + 9, val_max=int(vals.max()), dim_min=0, dim_max=g - 1,
+    )
+    assert np.array_equal(np.asarray(s), exp_s), bits
+    assert np.array_equal(np.asarray(c), exp_c), bits
 
 
 def test_match_counts_pack2_differential(monkeypatch):

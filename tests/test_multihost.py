@@ -1,7 +1,7 @@
 """Multi-host (2-process) mesh execution: spawns two worker processes that
 join the JAX distributed runtime over gloo CPU collectives and run every
 distributed kernel plus the SQL-level DistributedExecutor over a mesh that
-genuinely spans processes (the CPU stand-in for a multi-host TPU pod)."""
+genuinely spans processes (the CPU stand-in for a multi-host cluster)."""
 
 import os
 import socket

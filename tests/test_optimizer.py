@@ -6,6 +6,8 @@ combine-operators}.yml + checked-in *.planner.sql snapshots): each test
 optimizes a bound plan and asserts the resulting tree shape.
 """
 
+import os
+
 import pytest
 
 import sqlrs_tpu
@@ -14,6 +16,8 @@ from sqlrs_tpu.optimizer import optimize
 from sqlrs_tpu.parser import parse_one
 from sqlrs_tpu.plan import logical as L
 from sqlrs_tpu.plan.logical import explain_tree
+
+CSV_DIR = os.path.join(os.path.dirname(__file__), "csv")
 
 
 @pytest.fixture()
@@ -371,7 +375,7 @@ class TestReferenceColumnPruningGoldens:
     def test_cp5_prune_across_multiple_joins(self):
         d = sqlrs_tpu.Database()
         for name in ("employee", "department", "state"):
-            d.create_csv_table(name, f"/root/reference/tests/csv/{name}.csv")
+            d.create_csv_table(name, os.path.join(CSV_DIR, f"{name}.csv"))
         p = plan_for(d,
             "select employee.id, employee.first_name, "
             "department.department_name, state.state_name, state.state_code "

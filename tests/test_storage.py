@@ -2,6 +2,8 @@
 in-memory table store (bounds/projection per reference src/storage/csv.rs
 tests :310-400 and local_storage coalescing :98-120)."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -10,7 +12,7 @@ from sqlrs_tpu.storage.csv import CsvConfig, read_csv_file
 from sqlrs_tpu.storage.memory import DataTable
 from sqlrs_tpu.types import LogicalType as LT, ScalarValue
 
-EMPLOYEE = "/root/reference/tests/csv/employee.csv"
+EMPLOYEE = os.path.join(os.path.dirname(__file__), "csv", "employee.csv")
 
 
 def test_csv_inference_and_nulls(tmp_path):
